@@ -20,6 +20,21 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from opticalflow2d_tpu import Method  # noqa: E402
+from opticalflow2d_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+
+# Regularisation parameters per family; fluid's are the reference demo's
+# (test_opticalflow2d.m:23-38).
+REGPARAMS = {
+    Method.DIFFUSION: [0.5],
+    Method.CURVATURE: [0.1, 1.0],
+    Method.ELASTIC: [0.5, 0.0],
+    Method.THIRIONS_DEMONS: [1.0, 0.25, 2.0, 2.0, 5, 0],
+    Method.DIFFEOMORPHIC_DEMONS: [1.0, 0.25, 2.0, 2.0, 5],
+    Method.FLUID: [0.25, 0.0],
+}
+
 
 def synthesize_pair(n=256, seed=3):
     """Smooth multi-scale structure warped by a known smooth deformation."""
@@ -53,6 +68,33 @@ def synthesize_pair(n=256, seed=3):
     return img.astype(np.float32), imov.astype(np.float32)
 
 
+def synthesize_pair_jax(n, seed=3, feature_px=4.0):
+    """A textured pair generated on the default device, for sizes where
+    ``synthesize_pair``'s numpy loop is slow: Gaussian-filtered white noise
+    (features ``feature_px`` wide at any ``n``, as in a large scan), min-max
+    normalised, warped by ``synthesize_pair``'s smooth deformation."""
+    import jax
+    import jax.numpy as jnp
+
+    from opticalflow2d_tpu.ops.reduce import normalize_minmax
+    from opticalflow2d_tpu.ops.warp import warp2d
+
+    def make(key):
+        noise = jax.random.normal(key, (n, n), jnp.float32)
+        f = jnp.fft.fftfreq(n).astype(jnp.float32)
+        k2 = f[:, None] ** 2 + f[None, :] ** 2
+        lowpass = jnp.exp(-2.0 * (jnp.pi * feature_px) ** 2 * k2)
+        img = normalize_minmax(jnp.fft.irfft2(
+            jnp.fft.rfft2(noise) * lowpass[:, : n // 2 + 1], s=(n, n)))
+        xs = jnp.arange(n, dtype=jnp.float32)[:, None]
+        ys = jnp.arange(n, dtype=jnp.float32)[None, :]
+        ux = 3.0 * jnp.sin(2 * jnp.pi * ys / n) * jnp.sin(jnp.pi * xs / n)
+        uy = -2.5 * jnp.sin(2 * jnp.pi * xs / n) * jnp.sin(jnp.pi * ys / n)
+        return img, warp2d(img, jnp.stack([ux, uy]))
+
+    return jax.jit(make)(jax.random.PRNGKey(seed))
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--method", default="fluid",
@@ -63,8 +105,9 @@ def main():
     p.add_argument("--imov", help=".npy file for the moving image")
     p.add_argument("--save", help="directory to save outputs (.npy)")
     args = p.parse_args()
+    enable_compile_cache()
 
-    from opticalflow2d_tpu import OpticalFlow2d, Method
+    from opticalflow2d_tpu import OpticalFlow2d
     from opticalflow2d_tpu.ops.reduce import normalize_minmax
     import jax.numpy as jnp
 
@@ -83,14 +126,7 @@ def main():
     imov = np.pad(imov, ((pad, pad), (0, 0)), mode="edge")
 
     method = Method[args.method.upper()]
-    regparams = {
-        Method.DIFFUSION: [0.5],
-        Method.CURVATURE: [0.1, 1.0],
-        Method.ELASTIC: [0.5, 0.0],
-        Method.THIRIONS_DEMONS: [1.0, 0.25, 2.0, 2.0, 5, 0],
-        Method.DIFFEOMORPHIC_DEMONS: [1.0, 0.25, 2.0, 2.0, 5],
-        Method.FLUID: [0.25, 0.0],
-    }[method]
+    regparams = REGPARAMS[method]
 
     sess = OpticalFlow2d(
         iref.shape, niter=[25, 25], nscales=1,

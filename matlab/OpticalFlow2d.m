@@ -1,6 +1,6 @@
 function varargout = OpticalFlow2d(varargin)
 %OPTICALFLOW2D MATLAB/Octave front-end with the reference MEX call surface,
-% backed by the TPU engine through the native C library (native/build.sh).
+% backed by the JAX engine through the native C library (native/build.sh).
 %
 % Same five commands as the original MEX (WrapperOpticalFlow2d.cpp:18-155):
 %   OpticalFlow2d([dimx dimy], niter, nscales, reg, regparams, nparams, ...

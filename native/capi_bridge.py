@@ -26,6 +26,9 @@ def _to_flat(a: np.ndarray) -> bytes:
 def init(dimx, dimy, niter, nscales, reg, regparams, nrefine, verbose):
     global _session, _dims
     from opticalflow2d_tpu import OpticalFlow2d
+    from opticalflow2d_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     _dims = (int(dimx), int(dimy))
     _session = OpticalFlow2d(

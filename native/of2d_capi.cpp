@@ -1,9 +1,9 @@
-// Native C API for the TPU registration engine — the TPU-native equivalent
+// Native C API for the JAX registration engine — the equivalent
 // of the reference's MEX wrapper boundary (WrapperOpticalFlow2d.cpp:18-155):
 // the same 5-command stateful surface (init / register / get-motion / warp /
 // close), exposed as a plain C shared library so C, C++, Fortran, MATLAB
 // (loadlibrary) and Octave hosts can drive the engine. Internally embeds
-// CPython and forwards to native/capi_bridge.py, which runs the JAX/TPU
+// CPython and forwards to native/capi_bridge.py, which runs the JAX
 // session.
 //
 // Layout contract (identical to the MEX wrapper): double arrays, x-fastest

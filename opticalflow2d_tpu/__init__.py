@@ -1,6 +1,6 @@
-"""tpuflow2d — TPU-native 2D deformable image registration.
+"""tpuflow2d — 2D deformable image registration in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the full capabilities of the C++ MEX
+A JAX/XLA framework with the full capabilities of the C++ MEX
 library tjwdraper/OpticalFlow2d (see SURVEY.md): six PDE/demons solvers inside a
 multi-resolution pyramid, estimating a dense motion field u with T(x+u) ~= R(x).
 

@@ -63,7 +63,7 @@ class OpticalFlow2d:
         c = self.config
         lines = [
             "=" * 72,
-            "Optical flow image registration (TPU-native JAX implementation)",
+            "Optical flow image registration (JAX implementation)",
             f"dimensions:      {self.dims}",
             f"niter:           {c.niter[: c.nscales + 1]}",
             f"nscales:         {c.nscales}",
@@ -111,13 +111,12 @@ class OpticalFlow2d:
                 and self._result.coarse_motion is not None):
             warm_coarse = self._result.coarse_motion
         if max(self.dims) > 8192:
-            # Huge grids: one monolithic XLA program per level does not
-            # compile at 16384^2 in this environment (three isolated
-            # toolchain walls — RESULTS.md "16384^2 on one chip"); the
-            # phased driver runs each pyramid phase as its own program
-            # with identical semantics, so the 5-command surface keeps
-            # working out of the box — including persistent_motion warm
-            # continuation, which seeds the phased coarse level directly.
+            # Huge grids: the phased driver runs each pyramid phase as its
+            # own program with identical semantics, which bounds the
+            # device memory a level needs — including persistent_motion
+            # warm continuation, which seeds the phased coarse level
+            # directly. Whether a large-memory card still needs this
+            # routing is ROADMAP design item 2.
             from opticalflow2d_tpu.engine.registration import register_phased
 
             self._result = register_phased(iref, imov, self.config,

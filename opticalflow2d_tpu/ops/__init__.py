@@ -1,4 +1,4 @@
-"""Grid-op library: the TPU-native equivalents of the reference's L1 numeric
+"""Grid-op library: the data-parallel equivalents of the reference's L1 numeric
 primitives (``src/gradients.h``, ``src/Field.tpp``, ``src/Image.cpp``,
 ``src/Motion.cpp``, ``src/Kernel.cpp``)."""
 

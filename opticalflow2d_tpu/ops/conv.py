@@ -9,7 +9,7 @@ included weights, the clipped variant is computed *separably*:
     out = sepconv(field, gx, gy) / (denx (x) deny)
 
 which is exact and turns the O(N k^2) dense loop into two O(N k) passes that
-XLA fuses into VPU shift-adds — the TPU-native replacement for the reference's
+XLA fuses into shift-adds — the data-parallel replacement for the reference's
 scalar loops.
 
 ``convolve2d_flatwrap`` reproduces the reference's flat-index bounds-check bug

@@ -5,7 +5,7 @@ zeroed borders for the mixed derivative and quasi-laplacian) — reference
 ``src/gradients.h:9-80``. All functions operate on the trailing two axes
 ``[..., nx, ny]`` (axis -2 = "x", axis -1 = "y") so they broadcast over any
 leading batch/component axes and vmap cleanly. Everything is shift-and-add on
-static shapes: XLA fuses these into single VPU passes on TPU.
+static shapes: XLA fuses these into single elementwise passes.
 """
 
 from __future__ import annotations

@@ -43,12 +43,10 @@ def downsample_image(image: jnp.ndarray, dimout: Tuple[int, int]) -> jnp.ndarray
     """Box-filter downsample ``[..., nx, ny] -> [..., nx_out, ny_out]``.
 
     Two equivalent evaluations: the 4D reshape + mean (exact historical
-    float behavior, used at parity-relevant sizes), and MXU box-mean
-    matmuls for extents past 4096 — the reshape+mean form crashes the
-    remote Mosaic compile helper at 8192 lanes (r6 probes), the strided-
-    slice form costs 1.7 s of lane shuffles, while two one-hot-pair
-    matmuls run in milliseconds. Values differ from reshape+mean only in
-    summation order (~1 ulp), at sizes no parity test reaches."""
+    float behavior, used at parity-relevant sizes), and box-mean matmuls
+    at ``Precision.HIGHEST`` for extents past 4096. Values differ from
+    reshape+mean only in summation order (~1 ulp), at sizes no parity
+    test reaches."""
     nx_in, ny_in = image.shape[-2], image.shape[-1]
     nx_out, ny_out = dimout
     if nx_out > nx_in or ny_out > ny_in:
@@ -74,16 +72,14 @@ def _onehot_rows(idx: jnp.ndarray, n_in: int, dtype) -> jnp.ndarray:
 
 
 def _taps_matmul_separable(data, dx, dy):
-    """The four bilinear taps via one-hot selection matmuls on the MXU.
+    """The four bilinear taps via one-hot selection matmuls.
 
     Valid only for separable (axis-aligned) sample grids — ``dx`` constant
     along axis 1 and ``dy`` constant along axis 0 — which is exactly the
     upsample case. Bit-identical to ``_gather_taps_exact``: every output
     element is a dot product of a one-hot row with the data, i.e. one exact
-    product (0 and 1 are exact in bf16, and HIGHEST precision reconstructs
-    f32 products exactly via the bf16x3 decomposition) summed with exact
-    zeros. Replaces the dynamic-gather path, which costs ~47 ms/call at
-    512->1024 on TPU vs <1 ms here (benchmarks/r3_results.jsonl).
+    product (at ``Precision.HIGHEST`` a product with 0 or 1 is exact)
+    summed with exact zeros. It stands in for a dynamic gather.
     """
     nx, ny = data.shape[-2], data.shape[-1]
     ix0 = jnp.clip(dx[:, 0], 0, nx - 1)
@@ -110,7 +106,7 @@ def upsample_image(image: jnp.ndarray, dimout: Tuple[int, int]) -> jnp.ndarray:
     Sample point for output (i, j) is ``(i * nx_in / nx_out, j * ny_in / ny_out)``
     — note this is corner-anchored, not center-anchored, matching the
     reference (``src/Field.tpp:172-173``). The sample grid is static and
-    separable, so the taps are fetched with selection matmuls on the MXU
+    separable, so the taps are fetched with selection matmuls
     (``_taps_matmul_separable``) instead of a dynamic gather.
     """
     nx_in, ny_in = image.shape[-2], image.shape[-1]

@@ -1,5 +1,5 @@
 """Scaling layer: device meshes, batched (DP) registration, spatially-sharded
-stencils with ICI halo exchange, and the distributed DCT."""
+stencils with halo exchange, and the distributed DCT."""
 
 from opticalflow2d_tpu.parallel.mesh import make_mesh
 from opticalflow2d_tpu.parallel.batch import register_batch

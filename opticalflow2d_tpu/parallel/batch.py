@@ -10,14 +10,13 @@ Performance note: under vmap, ``lax.cond`` branches execute unconditionally
 (batched select), so the warp fast path's exact-gather fallback and the
 fluid regrid branch run every iteration for every pair. Batching therefore
 amortizes well for the variational solvers (diffusion/curvature/elastic)
-but is counterproductive on a single chip for the gather-heavy
+but is counterproductive on a single device for the gather-heavy
 demons/fluid paths — loop single-pair ``register`` calls there, or give
 each mesh device one pair so the per-device program stays unbatched.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Optional
 
@@ -34,27 +33,6 @@ from opticalflow2d_tpu.engine.registration import _register_impl, RegistrationRe
 _COND_HEAVY = (Method.THIRIONS_DEMONS, Method.DIFFEOMORPHIC_DEMONS, Method.FLUID)
 
 
-def _vmap_safe(cfg: RegConfig) -> RegConfig:
-    """Config for the vmapped path: force the jnp kernels. The temporal-
-    blocked/fused Pallas kernels do not lower under vmap — pallas_call's
-    batching rule prepends the batch dimension to the grid, and the
-    kernels' ANY-memory-space operands then carry a non-trivial index map,
-    which the Mosaic lowering rejects ("blocks having the same block shape
-    as the array shape and a trivial index_map"). At 256^2 the tile covers
-    the whole plane (trivial index map) so it happens to lower; at >=512^2
-    the grid is real and every vmapped Pallas config fails (first seen in
-    benchmarks/r8_serving_sweep.py under the round-4 production defaults).
-    Map mode keeps the Pallas production path per pair; the vmapped path
-    always runs the jnp kernels, which batch cleanly. (Every Pallas tier
-    is gated on ``use_pallas`` — ``pallas_block_elastic`` only activates
-    under ``blockable`` — so clearing it is sufficient.)"""
-    if not cfg.resolved_use_pallas:
-        return cfg
-    return dataclasses.replace(
-        cfg, use_pallas=False, pallas_block_elastic=False
-    )
-
-
 def _map_local(irefs, imovs, cfg, u0s=None):
     """Sequential per-pair registration (lax.map keeps lax.cond as real
     branching, unlike vmap's both-branch select)."""
@@ -69,7 +47,6 @@ def _map_local(irefs, imovs, cfg, u0s=None):
 @functools.lru_cache(maxsize=32)
 def _jitted_batch(cfg: RegConfig, mesh: Optional[Mesh], impl: str, warm: bool):
     if impl == "vmap":
-        cfg = _vmap_safe(cfg)
         if warm:
             fn = jax.vmap(lambda r, m, u0: _register_impl(r, m, cfg, u0))
         else:
@@ -96,17 +73,14 @@ def _jitted_batch(cfg: RegConfig, mesh: Optional[Mesh], impl: str, warm: bool):
 
 
 def _resolve_impl(cfg: RegConfig, impl: str) -> str:
-    """Resolve ``impl="auto"``: map for (a) cond-heavy methods (vmap
-    both-executes their branches) and (b) any Pallas-enabled config — the
-    vmapped path must fall back to the jnp kernels (``_vmap_safe``) and
-    loses to per-pair Pallas programs by 6-33x at 512^2-1024^2 (r8
-    serving_fix rows: diffusion @1024^2 batch 16, 194.6 reg/s map vs 5.9
-    vmap). vmap remains the pick for pure-jnp variational configs, where
-    SPMD batching amortizes genuinely."""
+    """Resolve ``impl="auto"``: map for cond-heavy methods (vmap
+    both-executes their gather-fallback and regrid branches), vmap for the
+    variational methods, where SPMD batching amortizes. Which side wins on
+    the card at each size is ROADMAP speed item 5."""
     if impl != "auto":
         return impl
     cond_heavy = cfg.method in _COND_HEAVY and cfg.warp_halo > 0
-    return "map" if (cond_heavy or cfg.resolved_use_pallas) else "vmap"
+    return "map" if cond_heavy else "vmap"
 
 
 def register_batch(
@@ -120,11 +94,10 @@ def register_batch(
       cfg: static registration config.
       mesh: optional mesh with a ``"data"`` axis; the batch is sharded over
         it (B must be divisible by the axis size).
-      impl: "vmap" (SPMD-batched; best for the variational solvers —
-        always runs the jnp kernels, see ``_vmap_safe``), "map" (per-pair
-        programs, sequential within each device — preserves real cond
-        branching for demons/fluid and keeps the Pallas production path),
-        or "auto" (picks by method and kernel path — ``_resolve_impl``).
+      impl: "vmap" (SPMD-batched; suits the variational solvers), "map"
+        (per-pair programs, sequential within each device — preserves real
+        cond branching for demons/fluid), or "auto" (picks by method —
+        ``_resolve_impl``).
       initial_motions: optional ``[B, 2, nx, ny]`` warm-start fields (e.g.
         previous-frame solutions in sequence processing).
 

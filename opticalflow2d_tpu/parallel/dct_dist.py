@@ -3,7 +3,7 @@
 The reference's curvature solve is a single-node FFTW DCT pair
 (``OpticalFlowCurvature.cpp:144-167``). Sharded over the mesh ``"x"`` axis,
 the transform becomes: local matmul along the unsharded y axis, an
-``all_to_all`` transpose over ICI, local matmul along the (now-local) x axis
+``all_to_all`` transpose between devices, local matmul along the (now-local) x axis
 — the classic distributed-FFT decomposition (SURVEY.md §2.2).
 
 The full semi-implicit update
@@ -40,13 +40,10 @@ def make_curvature_step_sharded(
     ``P(None, 'x', None)``. Numerically equivalent to the serial
     ``make_curvature_step`` (same transform matrices, same normalization);
     the DCT body is ``parallel.spatial._curvature_solve_strip``.
-    ``precision``: HIGH (default — the same 3-pass MXU precision class as
-    the serial production ``dct_impl="auto"`` -> ``split_high``
-    resolution; the sharded body keeps the dense per-axis transform —
-    folding the split-radix factorization into the strip matmuls is
-    possible but the collective transpose, not the MACs, dominates here)
-    or HIGHEST (the parity-grade 6-pass transform, matching
-    ``dct_impl="matmul"``)."""
+    ``precision``: HIGH (default — the precision class of the serial
+    ``dct_impl="auto"`` -> ``split_high`` resolution; the sharded body
+    keeps the dense per-axis transform) or HIGHEST (the parity-grade
+    transform, matching ``dct_impl="matmul"``)."""
     n_x = mesh.shape["x"]
     if nx % n_x != 0 or ny % n_x != 0:
         raise ValueError(

@@ -1,12 +1,10 @@
 """Multi-host setup (SURVEY.md §2.2: the reference's MATLAB driver has no
-distributed analog; this is the DCN-facing launcher).
+distributed analog; this is the multi-process launcher).
 
-Intra-slice scaling needs nothing beyond a Mesh over ``jax.devices()`` —
-XLA routes those collectives over ICI. Across hosts, call
-``initialize_multihost`` once per process before any JAX computation; all
-hosts then see the global device set and the same ``make_mesh`` calls build
-one global mesh (DP batches over DCN, spatial strips within each host's
-chips over ICI).
+Scaling within one host needs nothing beyond a Mesh over ``jax.devices()``.
+Across processes, call ``initialize_multihost`` once per process before any
+JAX computation; all processes then see the global device set and the same
+``make_mesh`` calls build one global mesh.
 """
 
 from __future__ import annotations
@@ -21,9 +19,9 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> dict:
-    """Initialize the JAX distributed runtime. With no arguments, values
-    come from the cluster environment (TPU pod metadata / env vars), which
-    is the common case on Cloud TPU. Returns a summary dict."""
+    """Initialize the JAX distributed runtime. Arguments left as None are
+    taken from the cluster environment, where JAX can detect one; without
+    a detectable cluster pass all three. Returns a summary dict."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

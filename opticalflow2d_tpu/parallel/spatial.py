@@ -12,7 +12,7 @@ Two complementary paths:
 
 2. Explicit ``shard_map`` drivers: hand-scheduled strip-local pipelines
    with ppermute halo exchange, used to validate and benchmark against
-   path 1 and as the template for Pallas ring kernels. Every family's
+   path 1. Every family's
    per-iteration body lives in exactly ONE strip-local function
    (``_demons_iter_strip``, ``_sor_sweep_strip``, ``_diffusion_step``,
    ``_curvature_solve_strip``, ``_fluid_level_strip``); the public
@@ -243,7 +243,7 @@ def _gaussian_local(f, sigma: float, width: int, axis_name: str = "x"):
 
 
 def make_gaussian_smooth_sharded(mesh: Mesh, sigma: float, width: int):
-    """Boundary-renormalized separable Gaussian smoothing with k/2-row ICI
+    """Boundary-renormalized separable Gaussian smoothing with k/2-row
     halo exchange; matches ``ops.conv.convolve2d_clip`` exactly.
     Signature: ``f [..., nx, ny] -> f`` sharded ``P(..., 'x', None)``."""
 
@@ -340,140 +340,30 @@ def _compose_local(u_tot_loc, u_inc_loc, halo: int, axis_name: str):
     return jnp.where(in_b, inc_plus, u_tot_loc)
 
 
-def _warp_local_pallas(img_loc, u_loc, halo: int, axis_name: str, tb: int = 0):
-    """Pallas-fused variant of ``_warp_local``: exchange ``_PAD`` neighbour
-    rows once, then run the VMEM-resident masked-roll gather on the local
-    strip (kernel reads global coordinates via the scalar-prefetched strip
-    origin). Same contract: in-bounds floor offsets within ``halo``."""
-    from opticalflow2d_tpu.pallas_kernels.warp_fused import _PAD, warp2d_pallas_strip
-
-    nxl = img_loc.shape[-2]
-    idx = lax.axis_index(axis_name)
-    n = lax.psum(1, axis_name)
-    img_pad = _halo_pad(img_loc, _PAD, axis_name)
-    return warp2d_pallas_strip(img_pad, u_loc, idx * nxl, n * nxl, halo, tb)
-
-
-def _compose_local_pallas(u_tot_loc, u_inc_loc, halo: int, axis_name: str,
-                          tb: int = 0):
-    """Pallas-fused variant of ``_compose_local`` (see above)."""
-    from opticalflow2d_tpu.pallas_kernels.warp_fused import _PAD, compose_pallas_strip
-
-    nxl = u_tot_loc.shape[-2]
-    idx = lax.axis_index(axis_name)
-    n = lax.psum(1, axis_name)
-    ut_pad = _halo_pad(u_tot_loc, _PAD, axis_name)
-    return compose_pallas_strip(ut_pad, u_inc_loc, idx * nxl, n * nxl, halo, tb)
-
-
-def _expmap_strip(c, halo: int, axis_name: str, use_pallas: bool = False):
+def _expmap_strip(c, halo: int, axis_name: str):
     """Scaling-and-squaring exponential of a correspondence field with a
     globally reduced max-magnitude (matches ``ops.warp.expmap``)."""
-    _cl = _compose_local_pallas if use_pallas else _compose_local
     normsq = c[0] ** 2 + c[1] ** 2
     m = jnp.sqrt(lax.pmax(jnp.max(normsq), axis_name))
     nsq_f = jnp.ceil(1.0 + jnp.log2(jnp.maximum(m, jnp.finfo(c.dtype).tiny)))
     nsq = jnp.where(m > 0, jnp.maximum(nsq_f, 0.0), 0.0).astype(jnp.int32)
     v = c * jnp.exp2(-nsq.astype(c.dtype))
-    return lax.fori_loop(0, nsq, lambda _, w: _cl(w, w, halo, axis_name), v)
+    return lax.fori_loop(
+        0, nsq, lambda _, w: _compose_local(w, w, halo, axis_name), v
+    )
 
 
 # --- family iteration bodies (ONE definition each) ------------------------
 
-def _demons_iter_strip_onepass(u_est, iref_l, iaux, p: dict, halo: int,
-                               axis_name: str):
-    """Thirion-only single-kernel strip iteration: the whole chain in ONE
-    VMEM pass (``pallas_kernels.demons_onepass``), fed with ppermute halo
-    pre-pads of ``required_pad`` rows and the scalar-prefetched strip
-    origin. Same contract as the dense path: the correspondence bound is
-    static (``onepass_supported``), the motion bound is the SP driver's
-    halo contract."""
-    from opticalflow2d_tpu.pallas_kernels.demons_onepass import (
-        required_pad, thirion_onepass_pallas)
-
-    pad = required_pad(halo, p["kernelwidth"])
-    nxl = iaux.shape[-2]
-    row0 = lax.axis_index(axis_name) * nxl
-    nxg = lax.psum(1, axis_name) * nxl
-    return thirion_onepass_pallas(
-        _halo_pad(iaux, pad, axis_name),
-        _halo_pad(iref_l, pad, axis_name),
-        _halo_pad(u_est, pad, axis_name),
-        p["sigma_i"], p["sigma_x"], p["sigma_fluid"], p["sigma_diffusion"],
-        p["kernelwidth"], halo, addition=False,
-        row0=row0, nx_glob=nxg, prepadded=True,
-    )
-
-
-def _demons_iter_strip_fused(u_est, iref_l, iaux, p: dict, halo: int,
-                             diffeomorphic: bool, axis_name: str):
-    """The fully fused strip-local demons iteration: two Pallas kernels
-    (``pallas_kernels.demons_fused``) fed with ppermute halo pre-pads and
-    the scalar-prefetched strip origin; exp-map squarings on the fused
-    strip compose kernel."""
-    from opticalflow2d_tpu.pallas_kernels.demons_fused import (
-        demons_correspondence_pallas, compose_smooth_pallas)
-    from opticalflow2d_tpu.pallas_kernels.warp_fused import _PAD
-
-    nxl = iaux.shape[-2]
-    idx = lax.axis_index(axis_name)
-    n = lax.psum(1, axis_name)
-    row0 = idx * nxl
-    nxg = n * nxl
-
-    c = demons_correspondence_pallas(
-        _halo_pad(iaux, _PAD, axis_name),
-        _halo_pad(iref_l, _PAD, axis_name),
-        _halo_pad(u_est, _PAD, axis_name),
-        p["sigma_i"], p["sigma_x"], p["sigma_fluid"], p["kernelwidth"],
-        halo=halo, row0=row0, nx_glob=nxg, prepadded=True,
-    )
-    if diffeomorphic:
-        c = _expmap_strip(c, halo, axis_name, use_pallas=True)
-    return compose_smooth_pallas(
-        _halo_pad(u_est, _PAD, axis_name),
-        _halo_pad(c, _PAD, axis_name),
-        p["sigma_diffusion"], p["kernelwidth"],
-        halo=halo, row0=row0, nx_glob=nxg, prepadded=True,
-    )
-
-
 def _demons_iter_strip(u_est, iref_l, iaux, p: dict, halo: int,
-                       diffeomorphic: bool, axis_name: str,
-                       use_pallas: bool = False):
+                       diffeomorphic: bool, axis_name: str):
     """One Thirion/diffeomorphic demons iteration on local strips:
     halo-exchanged warp -> gradient -> demons force -> fluid smoothing ->
     (exp map ->) compose -> diffusion smoothing. THE single definition of
     the sharded demons body (step driver, level driver, SP pyramid).
     Matches ``solvers.demons.make_demons_step`` (DemonsThirions.cpp:18-42).
-
-    ``use_pallas=True`` runs the whole iteration as the two fused
-    strip-local Pallas kernels (halo pre-pad + scalar-prefetched strip
-    origin) when the tap reach fits; otherwise falls back to the
-    strip-local fused warp/compose inside the jnp chain.
     """
-    if use_pallas:
-        from opticalflow2d_tpu.pallas_kernels.demons_fused import fused_supported
-        from opticalflow2d_tpu.pallas_kernels.demons_onepass import (
-            onepass_feasible, onepass_supported, required_pad)
-
-        nxl, ny = iaux.shape[-2], iaux.shape[-1]
-        if (not diffeomorphic
-                and onepass_supported(halo, p["kernelwidth"], p["sigma_i"],
-                                      p["sigma_x"])
-                and onepass_feasible(nxl, ny, halo, p["kernelwidth"])
-                and nxl % required_pad(halo, p["kernelwidth"]) == 0):
-            return _demons_iter_strip_onepass(
-                u_est, iref_l, iaux, p, halo, axis_name
-            )
-        if fused_supported(halo, p["kernelwidth"]):
-            return _demons_iter_strip_fused(
-                u_est, iref_l, iaux, p, halo, diffeomorphic, axis_name
-            )
-    _wl = _warp_local_pallas if use_pallas else _warp_local
-    _cl = _compose_local_pallas if use_pallas else _compose_local
-
-    iwar = _wl(iaux, u_est, halo, axis_name)
+    iwar = _warp_local(iaux, u_est, halo, axis_name)
     grad = _gradient_local(iwar, axis_name)
     it_img = iwar - iref_l
     den = (grad[0] ** 2 + grad[1] ** 2
@@ -483,8 +373,8 @@ def _demons_iter_strip(u_est, iref_l, iaux, p: dict, halo: int,
                   num / jnp.where(den[None] > 0, den[None], 1.0), 0.0)
     c = _gaussian_local(c, p["sigma_fluid"], p["kernelwidth"], axis_name)
     if diffeomorphic:
-        c = _expmap_strip(c, halo, axis_name, use_pallas)
-    u_new = _cl(u_est, c, halo, axis_name)
+        c = _expmap_strip(c, halo, axis_name)
+    u_new = _compose_local(u_est, c, halo, axis_name)
     return _gaussian_local(u_new, p["sigma_diffusion"], p["kernelwidth"],
                            axis_name)
 
@@ -519,7 +409,7 @@ def _curvature_solve_strip(rhs, nx_g: int, ny_g: int, alpha: float,
                            tau: float, axis_name: str,
                            precision=lax.Precision.HIGHEST):
     """Distributed semi-implicit curvature solve of ``rhs [c, nxl, ny]``:
-    local y-DCT, all_to_all transpose over ICI, local x-DCT + eigenvalue
+    local y-DCT, all_to_all transpose between devices, local x-DCT + eigenvalue
     multiply in the transposed layout, inverse transforms back — two
     all_to_alls total (the classic distributed-FFT decomposition). THE
     single definition of the sharded DCT body (also used by
@@ -556,8 +446,9 @@ def _curvature_step_strip(u_est, grad_i, it_img, p: dict, nx_g: int,
     inner = it_img + u_est[0] * grad_i[0] + u_est[1] * grad_i[1]
     f = grad_i * inner[None]
     rhs = u_est - p.get("tau", 1.0) * f
-    # Default HIGH: matches the serial driver's production dct_impl="auto"
-    # resolution, so SP-vs-serial comparisons stay precision-consistent.
+    # Default HIGH: matches the serial driver's dct_impl="auto" resolution
+    # (RegConfig.resolved_dct_impl), so SP-vs-serial comparisons stay
+    # precision-consistent.
     return _curvature_solve_strip(
         rhs, nx_g, ny_g, p["alpha"], p.get("tau", 1.0), axis_name,
         p.get("dct_precision", lax.Precision.HIGH),
@@ -565,8 +456,7 @@ def _curvature_step_strip(u_est, grad_i, it_img, p: dict, nx_g: int,
 
 
 def _fluid_level_strip(u, iref_l, imov_l, niter: int, halo: int, p: dict,
-                       convergence_tol: float, axis_name: str,
-                       use_pallas: bool = False):
+                       convergence_tol: float, axis_name: str):
     """A full viscous-fluid LEVEL solve on local strips: per-iteration
     red-black SOR velocity solve, material-derivative increment, adaptive
     timestep via pmax, Jacobian-triggered regridding via pmin, Logger
@@ -574,26 +464,13 @@ def _fluid_level_strip(u, iref_l, imov_l, niter: int, halo: int, p: dict,
     definition of the sharded fluid loop (level driver AND SP pyramid).
     Matches ``engine.registration._solve_level_fluid``
     (ImageRegistrationFluid.cpp:67-142). Returns (u, iterations, regrids).
-
-    ``use_pallas``: run the force + SOR sweep + material derivative +
-    max|R|^2 chain as ONE strip-local Pallas pass per iteration
-    (``pallas_kernels.fluid_fused.fluid_iter_strip``, fed with ppermute
-    halo pre-pads) where the shape admits it."""
+    """
     mu, lam = p["mu"], p["lam"]
     omega = p.get("omega", 0.66)
     dumax = p.get("dumax", 0.65)
     ts_skip = p.get("timestep_skip", 65.0)
     rg_thr = p.get("regrid_threshold", 0.5)
     ref_stencil = p.get("reference_stencil", True)
-
-    nxl, ny = u.shape[-2], u.shape[-1]
-    use_fused = False
-    if use_pallas:
-        from opticalflow2d_tpu.pallas_kernels.fluid_fused import (
-            _PAD as _FPAD, _tier as _ftier, fluid_iter_strip)
-
-        use_fused = (_ftier(ny) is not None and nxl % _FPAD == 0
-                     and nxl >= _FPAD)
 
     def derive(u_tot):
         ia = _warp_local(imov_l, u_tot, halo, axis_name)
@@ -607,25 +484,13 @@ def _fluid_level_strip(u, iref_l, imov_l, niter: int, halo: int, p: dict,
 
     def fbody(carry):
         u_tot, u_est, prev, vel, grad_i, it_img, it, conv, nregrid = carry
-        if use_fused:
-            g = jnp.concatenate([grad_i, it_img[None]], axis=0)
-            row0 = lax.axis_index(axis_name) * nxl
-            nxg = lax.psum(1, axis_name) * nxl
-            vel, r, msq = fluid_iter_strip(
-                _halo_pad(u_est, _FPAD, axis_name),
-                _halo_pad(vel, _FPAD, axis_name),
-                _halo_pad(g, _FPAD, axis_name),
-                row0, nxg, mu, lam, omega, ref_stencil,
-            )
-            m = jnp.sqrt(lax.pmax(msq, axis_name))
-        else:
-            inner = it_img + u_est[0] * grad_i[0] + u_est[1] * grad_i[1]
-            f = grad_i * inner[None]
-            vel = _sor_sweep_strip(vel, f, mu, lam, omega, ref_stencil,
-                                   axis_name)
-            dudx, dudy = _partials_strip(u_est, axis_name)
-            r = vel - dudx * vel[0:1] - dudy * vel[1:2]
-            m = jnp.sqrt(lax.pmax(jnp.max(r[0] ** 2 + r[1] ** 2), axis_name))
+        inner = it_img + u_est[0] * grad_i[0] + u_est[1] * grad_i[1]
+        f = grad_i * inner[None]
+        vel = _sor_sweep_strip(vel, f, mu, lam, omega, ref_stencil,
+                               axis_name)
+        dudx, dudy = _partials_strip(u_est, axis_name)
+        r = vel - dudx * vel[0:1] - dudy * vel[1:2]
+        m = jnp.sqrt(lax.pmax(jnp.max(r[0] ** 2 + r[1] ** 2), axis_name))
         dt = dumax / m
         do_step = dt < ts_skip
         u_new = jnp.where(do_step, u_est + r * jnp.where(do_step, dt, 0.0),
@@ -661,115 +526,6 @@ def _fluid_level_strip(u, iref_l, imov_l, niter: int, halo: int, p: dict,
     return _compose_local(u_tot, u_est, halo, axis_name), it, nregrid
 
 
-def _diffusion_level_blocked_strip(u, grad_i, it_img, alpha: float,
-                                   niter: int, k: int, halo: int,
-                                   convergence_tol: float, axis_name: str):
-    """Diffusion level loop over the strip-local temporal-block kernel
-    (``pallas_kernels.diffusion_block.diffusion_block_strip``): one
-    ``pad``-row halo exchange + one HBM pass per ``k`` iterations instead
-    of per iteration — k-fold fewer ICI collectives AND k-fold less HBM
-    traffic. Logger stop semantics are exact: per-iteration error sums are
-    psum-reduced across strips, and a partial final block is recomputed
-    with the per-iteration strip step (same float sequence)."""
-    from opticalflow2d_tpu.pallas_kernels.diffusion_block import (
-        diffusion_block_strip,
-        required_pad,
-        stack_derivs,
-    )
-
-    pad = required_pad(k)
-    g_pad = _halo_pad(stack_derivs(grad_i, it_img), pad, axis_name)
-    _, _, den = _diffusion_consts_strip(grad_i, it_img, alpha)
-
-    def block_call(u_pad, row0, nx_glob):
-        return diffusion_block_strip(u_pad, g_pad, row0, nx_glob, alpha, k=k)
-
-    def step_call(v):
-        return _diffusion_step_strip(v, grad_i, it_img, den, axis_name)
-
-    return _level_blocked_strip(
-        u, niter, k, pad, halo, convergence_tol, axis_name,
-        block_call, step_call,
-    )
-
-
-def _elastic_level_blocked_strip(u, grad_i, it_img, p: dict, niter: int,
-                                 k: int, halo: int, convergence_tol: float,
-                                 axis_name: str):
-    """Elastic analog of ``_diffusion_level_blocked_strip`` (cone is 2
-    rows/iter). On one chip the elastic iteration is VPU-bound so blocking
-    is compute-neutral; the SP win is one pad-row halo exchange per k
-    iterations instead of k single-row exchanges."""
-    from opticalflow2d_tpu.pallas_kernels.diffusion_block import stack_derivs
-    from opticalflow2d_tpu.pallas_kernels.elastic_block import (
-        elastic_block_strip,
-        required_pad,
-    )
-
-    pad = required_pad(k)
-    g_pad = _halo_pad(stack_derivs(grad_i, it_img), pad, axis_name)
-    mu, lam, omega = p["mu"], p["lam"], p.get("omega", 0.66)
-    ref_st = bool(p.get("reference_stencil", True))
-
-    def block_call(u_pad, row0, nx_glob):
-        return elastic_block_strip(
-            u_pad, g_pad, row0, nx_glob, mu, lam, omega, ref_st, k=k
-        )
-
-    def step_call(v):
-        return _elastic_step_strip(v, grad_i, it_img, p, axis_name)
-
-    return _level_blocked_strip(
-        u, niter, k, pad, halo, convergence_tol, axis_name,
-        block_call, step_call,
-    )
-
-
-def _level_blocked_strip(u, niter: int, k: int, pad: int, halo: int,
-                         convergence_tol: float, axis_name: str,
-                         block_call, step_call):
-    """Shared strip-local blocked level loop: halo-pad, run the k-iteration
-    kernel, psum the per-iteration error partials, apply the exact Logger
-    gate, recompute a partial final block with the per-iteration step."""
-    nxl = u.shape[-2]
-    idx = lax.axis_index(axis_name)
-    n = lax.psum(1, axis_name)
-    row0 = idx * nxl
-    nx_glob = n * nxl
-
-    def cond(carry):
-        _, it, conv = carry
-        return (it < niter) & ~conv
-
-    def body(carry):
-        u_est, it, conv = carry
-        u_pad = _halo_pad(u_est, pad, axis_name)
-        u_blk, part = block_call(u_pad, row0, nx_glob)
-        sums = lax.psum(part, axis_name)
-        prev_norm = sums[:, 1]
-        errs_blk = jnp.where(
-            prev_norm == 0, 0.0,
-            sums[:, 0] / jnp.where(prev_norm == 0, 1.0, prev_norm),
-        )
-        its = it + jnp.arange(k, dtype=jnp.int32)
-        conv_vec = (errs_blk < convergence_tol) & (its > 1) & (its < niter)
-        any_conv = jnp.any(conv_vec)
-        t_conv = jnp.argmax(conv_vec).astype(jnp.int32)
-        n_take = jnp.where(
-            any_conv, t_conv + 1, jnp.minimum(niter - it, k)
-        ).astype(jnp.int32)
-
-        def recompute(u0):
-            return lax.fori_loop(0, n_take, lambda _, v: step_call(v), u0)
-
-        u_next = lax.cond(n_take < k, recompute, lambda _u: u_blk, u_est)
-        return (u_next, it + n_take, any_conv)
-
-    u0 = jnp.zeros_like(u)
-    u_est, it, _ = lax.while_loop(cond, body, (u0, jnp.int32(0), jnp.bool_(False)))
-    return _compose_local(u, u_est, halo, axis_name), it
-
-
 def _iterate_level_strip(one_step, u, niter: int, halo: int,
                          convergence_tol: float, axis_name: str):
     """Generic level loop on local strips: while_loop of ``one_step`` gated
@@ -795,59 +551,32 @@ def _iterate_level_strip(one_step, u, niter: int, halo: int,
 
 
 def _level_local(family: str, u, iref_l, imov_l, level_niter: int, halo: int,
-                 p: dict, convergence_tol: float, use_pallas: bool = False):
+                 p: dict, convergence_tol: float):
     """One level solve on local strips (inside shard_map): family-dispatched
     per-iteration step + the Logger convergence gate + final composition.
     Families: thirions, diffeo, diffusion, elastic, curvature, fluid."""
     if family == "fluid":
         u, it, _ = _fluid_level_strip(
             u, iref_l, imov_l, level_niter, halo, p, convergence_tol, "x",
-            use_pallas,
         )
         return u, it
 
-    _wl = _warp_local_pallas if use_pallas else _warp_local
-    iaux = _wl(imov_l, u, halo, "x")
+    iaux = _warp_local(imov_l, u, halo, "x")
 
     if family in ("thirions", "diffeo"):
         def one_step(u_est):
             return _demons_iter_strip(
                 u_est, iref_l, iaux, p, halo, family == "diffeo", "x",
-                use_pallas,
             )
     else:
         grad_i = _gradient_local(iaux, "x")
         it_img = iaux - iref_l
         if family == "diffusion":
-            bk = int(p.get("block_k", 0))
-            if use_pallas and bk > 1 and iref_l.dtype == jnp.float32:
-                from opticalflow2d_tpu.pallas_kernels.diffusion_block import (
-                    _pick_tb_strip,
-                )
-
-                nxl = iref_l.shape[0]
-                if _pick_tb_strip(nxl, None, iref_l.shape[1]) is not None:
-                    return _diffusion_level_blocked_strip(
-                        u, grad_i, it_img, p["alpha"], level_niter, bk,
-                        halo, convergence_tol, "x",
-                    )
             _, _, den = _diffusion_consts_strip(grad_i, it_img, p["alpha"])
 
             def one_step(u_est):
                 return _diffusion_step_strip(u_est, grad_i, it_img, den, "x")
         elif family == "elastic":
-            bk = int(p.get("block_k", 0))
-            if use_pallas and bk > 1 and iref_l.dtype == jnp.float32:
-                from opticalflow2d_tpu.pallas_kernels.diffusion_block import (
-                    _pick_tb_strip,
-                )
-
-                if _pick_tb_strip(iref_l.shape[0], None, iref_l.shape[1]) is not None:
-                    return _elastic_level_blocked_strip(
-                        u, grad_i, it_img, p, level_niter, bk, halo,
-                        convergence_tol, "x",
-                    )
-
             def one_step(u_est):
                 return _elastic_step_strip(u_est, grad_i, it_img, p, "x")
         elif family == "curvature":
@@ -885,7 +614,7 @@ def make_sor_sweeps_sharded(
     niter: int,
     reference_stencil: bool = True,
 ):
-    """Red-black Navier-Lame SOR sweeps with explicit 1-row ICI halo
+    """Red-black Navier-Lame SOR sweeps with explicit 1-row halo
     exchange per half-sweep. Signature: ``(x [2,nx,ny], b [2,nx,ny]) -> x``
     with both sharded ``P(None, 'x', None)``."""
 
@@ -914,7 +643,6 @@ def make_demons_step_sharded(
     kernelwidth: int,
     halo: int = 2,
     diffeomorphic: bool = False,
-    use_pallas: bool = False,
 ):
     """One Thirion/diffeomorphic demons iteration with every op expressed as
     explicit shard_map collectives: halo-exchanged warp, gradient, Gaussian
@@ -925,9 +653,6 @@ def make_demons_step_sharded(
     Signature: ``(u [2,nx,ny], iref [nx,ny], imov [nx,ny]) -> u`` with u
     sharded ``P(None,'x',None)`` and images ``P('x',None)``. Displacement
     contract: all warp/compose offsets within ``halo``.
-
-    ``use_pallas=True`` routes warp/compose (including the exp-map
-    squarings) through the fused strip-local Pallas kernels.
     """
     p = dict(sigma_i=sigma_i, sigma_x=sigma_x, sigma_diffusion=sigma_diffusion,
              sigma_fluid=sigma_fluid, kernelwidth=kernelwidth)
@@ -939,28 +664,22 @@ def make_demons_step_sharded(
         check_vma=False,
     )
     def step(u, iref, imov):
-        return _demons_iter_strip(u, iref, imov, p, halo, diffeomorphic, "x",
-                                  use_pallas)
+        return _demons_iter_strip(u, iref, imov, p, halo, diffeomorphic, "x")
 
     return jax.jit(step)
 
 
-def make_warp2d_sharded(mesh: Mesh, halo: int, use_pallas: bool = False,
-                        tb: int = 0):
+def make_warp2d_sharded(mesh: Mesh, halo: int):
     """Blockwise backward warp with bounded-displacement halo exchange
     (SURVEY.md §5: the SP-equivalent of the reference's warp window logic,
     ``Image.cpp:144-151``). Each x-strip exchanges ``halo+1`` rows with its
-    neighbours over ICI and gathers via the masked-roll select chain — no
+    neighbours and gathers via the masked-roll select chain — no
     global collectives, O(halo) communication per device. Requires every
     in-bounds sample's floor offset within ``halo`` (the serial ``warp2d``
     with its runtime fallback is the safe general path).
 
     Signature: ``(image [nx, ny], u [2, nx, ny]) -> warped [nx, ny]`` with
     image sharded ``P('x', None)`` and u ``P(None, 'x', None)``.
-
-    ``use_pallas=True`` swaps the per-strip gather for the Pallas fused
-    kernel (``pallas_kernels.warp_fused``): one ppermute halo exchange,
-    then the select chain runs entirely in VMEM on each strip.
     """
 
     @functools.partial(
@@ -970,8 +689,6 @@ def make_warp2d_sharded(mesh: Mesh, halo: int, use_pallas: bool = False,
         check_vma=False,
     )
     def warp(img_loc, u_loc):
-        if use_pallas:
-            return _warp_local_pallas(img_loc, u_loc, halo, "x", tb)
         return _warp_local(img_loc, u_loc, halo, "x")
 
     return jax.jit(warp)
@@ -988,7 +705,6 @@ def make_demons_level_sharded(
     halo: int = 2,
     diffeomorphic: bool = False,
     convergence_tol: float = 0.001,
-    use_pallas: bool = False,
 ):
     """A full demons LEVEL solve as one explicit shard_map program:
     per-iteration step (halo-exchanged warp/gradient/smooth/compose) inside
@@ -1011,7 +727,7 @@ def make_demons_level_sharded(
     )
     def solve(u, iref, imov):
         return _level_local(family, u, iref, imov, niter, halo, p,
-                            convergence_tol, use_pallas)
+                            convergence_tol)
 
     return jax.jit(solve)
 
@@ -1040,9 +756,8 @@ def make_variational_level_sharded(
     with every collective explicit.
 
     Curvature extra kwargs: ``tau`` (uses ``alpha`` as the regularisation
-    weight) and ``dct_precision`` (HIGH default = the production 3-pass
-    MXU variant matching the serial ``dct_impl="auto"`` resolution;
-    HIGHEST = parity grade); requires ny divisible by the mesh x-axis
+    weight) and ``dct_precision`` (HIGH default, matching the serial
+    ``dct_impl="auto"`` resolution; HIGHEST = parity grade); requires ny divisible by the mesh x-axis
     size.
 
     Signature: ``(u [2,nx,ny], iref, imov) -> (u, iterations)``.
@@ -1081,14 +796,10 @@ def make_fluid_level_sharded(
     regrid_threshold: float = 0.5,
     convergence_tol: float = 0.001,
     reference_stencil: bool = True,
-    use_pallas: bool = False,
 ):
     """A full viscous-fluid LEVEL solve as one explicit shard_map program
     (see ``_fluid_level_strip`` for the body; the reference's
     ``ImageRegistrationFluid.cpp:67-142`` with every collective explicit).
-
-    ``use_pallas``: strip-local fused fluid iteration kernel where the
-    shape admits it (see ``_fluid_level_strip``).
 
     Signature: ``(u [2,nx,ny], iref, imov) -> (u, iterations, regrids)``.
     """
@@ -1104,7 +815,7 @@ def make_fluid_level_sharded(
     )
     def solve(u, iref, imov):
         return _fluid_level_strip(u, iref, imov, niter, halo, p,
-                                  convergence_tol, "x", use_pallas)
+                                  convergence_tol, "x")
 
     return jax.jit(solve)
 
@@ -1159,7 +870,6 @@ def make_register_sp(
     nrefine: int = 1,
     halo: int = 2,
     convergence_tol: float = 0.001,
-    use_pallas: bool = False,
     **params,
 ):
     """A COMPLETE multi-resolution registration as one explicit shard_map
@@ -1177,8 +887,6 @@ def make_register_sp(
     the level image by the accumulated motion, solves a fresh estimate
     from zero, and composes it back — ``_level_local`` is exactly one
     refinement, so the loop is a static unroll around it.
-    ``use_pallas=True`` routes the demons-family warp/compose through the
-    strip-local fused kernels.
     Signature: ``(iref, imov) -> (u [2,nx,ny],
     iterations [(nscales+1) * nrefine])`` — iteration counts ordered
     coarse -> fine, refine-major, matching the serial driver's traces.
@@ -1219,7 +927,7 @@ def make_register_sp(
             for _refine in range(nrefine):
                 u, it = _level_local(
                     family, u, irefs[sc], imovs[sc], niter[sc], halo, params,
-                    convergence_tol, use_pallas,
+                    convergence_tol,
                 )
                 iters.append(it)
             if sc > 0:
@@ -1257,7 +965,7 @@ def make_register_demons_sp(
 
 def make_diffusion_sweeps_sharded(mesh: Mesh, alpha: float, niter: int):
     """Build a jitted function running ``niter`` Horn-Schunck sweeps with
-    explicit ICI halo exchange; inputs/outputs sharded in x-strips.
+    explicit halo exchange; inputs/outputs sharded in x-strips.
 
     Signature: ``(u [2, nx, ny], grad_i [2, nx, ny], it [nx, ny]) -> u``.
     The image x-size must be divisible by the mesh's "x" axis.

@@ -33,6 +33,13 @@ def derivatives(iref: jnp.ndarray, imov: jnp.ndarray) -> Derivatives:
     return Derivatives(grad_i=spatial_gradient(imov), it=imov - iref)
 
 
+def stack_derivs(grad_i: jnp.ndarray, it_img: jnp.ndarray) -> jnp.ndarray:
+    """Pack (gx, gy, It) into one ``[3, nx, ny]`` array — the layout the
+    host-stepped fluid driver carries between its programs, so no
+    iteration re-stacks it."""
+    return jnp.concatenate([grad_i, it_img[None]], axis=0)
+
+
 def lssd_force(d: Derivatives, u: jnp.ndarray) -> jnp.ndarray:
     """Linearized-SSD force ``f = grad(I) * (It + ux*dIx + uy*dIy)``,
     shape ``[2, nx, ny]`` (reference ``OpticalFlow.cpp:15-39``)."""

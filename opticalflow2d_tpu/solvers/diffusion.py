@@ -5,9 +5,8 @@ One Jacobi-style fixed-point iteration
 4-neighbour average and the force is evaluated *at* ``qbar(u)`` (reference
 ``src/regularization/OpticalFlow/OpticalFlowDiffusion.cpp:19-84``).
 
-On TPU this is three fused elementwise/stencil passes — XLA fuses the whole
-step into a single VPU kernel; the Pallas variant in
-``pallas_kernels/diffusion_fused.py`` fuses it explicitly for benchmarking.
+The step is three elementwise/stencil passes, which XLA fuses into one
+loop.
 """
 
 from __future__ import annotations

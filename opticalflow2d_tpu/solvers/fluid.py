@@ -37,7 +37,6 @@ def make_fluid_step(
     reference_stencil: bool = True,
     sor_ordering: str = "redblack",
     spectral_solve=None,
-    use_pallas: bool = False,
 ):
     """Build the fluid step. State is ``(u, velocity)``; returns the updated
     pair plus the timestep for diagnostics.
@@ -45,57 +44,26 @@ def make_fluid_step(
     With ``spectral_solve`` (a ``make_spectral_navier_lame_solver`` result),
     the velocity is the exact Navier-Lame solution of the current force each
     iteration instead of one warm-started SOR sweep.
-
-    With ``use_pallas`` (and red-black SOR, no spectral solve), the
-    force + sweep + material derivative + maxabs chain runs as ONE fused
-    Pallas pass (``pallas_kernels.fluid_fused``) at shapes with a measured
-    tier — same trajectory structure (skip decisions, regrid events,
-    iteration counts), values to ~1 ulp; pinned in tests/test_fluid_fused.
     """
-    use_fused = (
-        use_pallas and spectral_solve is None and sor_ordering == "redblack"
-    )
-    if use_fused:
-        from opticalflow2d_tpu.pallas_kernels.fluid_fused import (
-            fluid_feasible, fluid_iter_pallas)
 
     def step(
-        u: jnp.ndarray, velocity: jnp.ndarray, d
+        u: jnp.ndarray, velocity: jnp.ndarray, d: Derivatives
     ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-        # ``d`` is either a Derivatives pair or the prestacked ``[3, nx,
-        # ny]`` plane the fused kernel consumes directly. The host-stepped
-        # huge-grid driver passes the stacked form: re-stacking per
-        # iteration materializes 3 GB at 16384^2, a third of the OOM
-        # margin there.
-        prestacked = not isinstance(d, Derivatives)
-        if prestacked:
-            g_stack = d
-            d = Derivatives(g_stack[:2], g_stack[2])
-        if use_fused and fluid_feasible(u.shape[1], u.shape[2]):
-            g = (g_stack if prestacked
-                 else jnp.concatenate([d.grad_i, d.it[None]], axis=0))
-            velocity, r, maxsq = fluid_iter_pallas(
-                u, velocity, g, mu, lam, omega, reference_stencil,
-                maxabs_bug,
-            )
-            m = jnp.sqrt(maxsq)
+        f = lssd_force(d, u)
+        if spectral_solve is not None:
+            velocity = spectral_solve(f)
         else:
-            f = lssd_force(d, u)
-            if spectral_solve is not None:
-                velocity = spectral_solve(f)
-            else:
-                velocity = sor_sweep(
-                    velocity, f, mu, lam, omega, reference_stencil,
-                    sor_ordering
-                )
+            velocity = sor_sweep(
+                velocity, f, mu, lam, omega, reference_stencil, sor_ordering
+            )
 
-            # Material derivative:
-            # R_c = v_c - (d u_c/dx) v_x - (d u_c/dy) v_y
-            dudx = partial_x(u)  # [2, nx, ny]: per-component d/dx
-            dudy = partial_y(u)
-            r = velocity - dudx * velocity[0:1] - dudy * velocity[1:2]
+        # Material derivative:
+        # R_c = v_c - (d u_c/dx) v_x - (d u_c/dy) v_y
+        dudx = partial_x(u)  # [2, nx, ny]: per-component d/dx
+        dudy = partial_y(u)
+        r = velocity - dudx * velocity[0:1] - dudy * velocity[1:2]
 
-            m = motion_maxabs(r, bug=maxabs_bug)
+        m = motion_maxabs(r, bug=maxabs_bug)
         # m == 0 -> dt = inf -> skip branch, matching C++ float division.
         dt = dumax / m
         do_step = dt < timestep_skip

@@ -19,7 +19,7 @@ whose Fourier symbols are ``L = dxx + dyy``, ``dxx = 2cos(wx)-2``,
 is a symmetric 2x2 system inverted analytically; the k=0 (mean) mode is
 null and set to zero.
 
-On TPU the whole solve is two rfft2/irfft2 pairs plus elementwise work —
+The whole solve is two rfft2/irfft2 pairs plus elementwise work —
 O(N log N), massively faster to convergence than per-sweep SOR for stiff
 parameters, at the cost of periodic (not reference) boundary behavior.
 Select with ``RegConfig.navier_lame_solver="spectral"``.
@@ -168,14 +168,14 @@ def make_dirichlet_navier_lame_solver(
 
     Method: the per-component diagonal part
     ``mu (d2x + d2y) + (mu+lam) d2_{x|y}`` diagonalizes in the DST-I basis
-    (MXU matmul transform — measured faster than FFT on TPU), but the
+    (a matmul transform), but the
     ``(mu+lam) dxy`` cross coupling maps sine modes onto the opposite
     parity and is NOT sine-diagonal. The full operator IS symmetric (the
     coupling blocks are the self-adjoint mixed difference; the asymmetric
     reference term is a self-adjoint diagonal block), so the solve is
     DST-preconditioned conjugate gradients: each inner iteration is one
-    cheap VPU stencil apply plus one exact sine-space diagonal solve
-    (8 MXU matmuls). Unlike plain preconditioned Richardson — which
+    cheap stencil apply plus one exact sine-space diagonal solve
+    (8 matmuls). Unlike plain preconditioned Richardson — which
     diverges once ``lam`` dominates ``mu`` (the ``D^{-1}C`` spectral
     radius crosses 1) — CG converges for every valid ``(mu, lam)``.
     ``inner_iters=0`` picks the default: 12 (≈1e-6 relative residual for
@@ -211,8 +211,7 @@ def make_dirichlet_navier_lame_solver(
     if precision is None:
         # HIGH: the preconditioner's matmul precision barely affects the
         # converged residual (CG self-corrects against the f32 stencil
-        # operator); measured on v5e @1024^2: 4.1 ms vs 7.2 ms at HIGHEST
-        # with equal 1e-5 relative error.
+        # operator).
         precision = lax.Precision.HIGH
     mx, my = nx - 2, ny - 2
     if mx < 1 or my < 1:
@@ -230,7 +229,7 @@ def make_dirichlet_navier_lame_solver(
 
     def _precond(r):
         """Exact solve of the decoupled diagonal system ``M z = r`` in sine
-        space: 4 MXU matmuls per component."""
+        space: 4 matmuls per component."""
         t = jnp.einsum("ki,cij->ckj", sx, r, precision=precision)
         t = jnp.einsum("cij,jl->cil", t, sy, precision=precision)
         t = t * inv_md

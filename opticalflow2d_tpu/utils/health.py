@@ -1,4 +1,4 @@
-"""Numerical-health checks (SURVEY.md §5: the TPU replacement for the
+"""Numerical-health checks (SURVEY.md §5: the replacement for the
 reference's absent sanitizers — JAX is functional, so data races are
 structural non-issues; the risks here are NaN/Inf propagation and silently
 diverging solves)."""

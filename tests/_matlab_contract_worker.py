@@ -2,7 +2,7 @@
 matlab/OpticalFlow2d.m emits, via ctypes against libopticalflow2d.so.
 
 No Octave/MATLAB exists in this image, so the .m glue cannot execute; this
-worker pins its contract instead (VERDICT round-3 item #6): the same five
+worker pins its contract instead: the same five
 commands, the same argument marshaling (int32 niter, double regparams,
 column-major = x-fastest flattening, [dimx dimy 2] motion readback), and
 the same header prototypes the .m writes for loadlibrary. Run by

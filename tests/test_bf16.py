@@ -1,6 +1,6 @@
 """bf16 accuracy assertions: registration in bfloat16 vs float32 for ALL
-six families, with per-family tolerances calibrated from the bf16 study
-(``benchmarks/bf16_study.py``; table in benchmarks/RESULTS.md).
+six families, with per-family tolerances calibrated from a bf16 accuracy
+study on the CPU.
 
 Verdicts from the study (two sizes, 48x40 and 128x128):
 - diffusion / curvature / elastic: safe (mean EE <= 6e-3 px).

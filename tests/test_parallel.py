@@ -49,30 +49,19 @@ def test_register_batch_matches_serial():
 
 
 def test_register_batch_vmap_forces_jnp_kernels():
-    """The vmapped path must run the jnp kernels: pallas_call's batching
-    rule gives the blocked/fused kernels' ANY-space operands a non-trivial
-    index map that the Mosaic lowering rejects at >=512^2 (r8 serving
-    sweep, under the round-4 production defaults). On CPU this test
-    discriminates directly — without the override, use_pallas=True
-    would attempt a real pallas_call and fail."""
-    from opticalflow2d_tpu.parallel.batch import _resolve_impl, _vmap_safe
+    """The vmapped path runs the plain jnp kernels (the only kernels there
+    are) and matches the serial driver; an explicit impl wins over the
+    auto rule, which keys on cond-heavy methods alone."""
+    from opticalflow2d_tpu.parallel.batch import _resolve_impl
 
-    cfg_p = dataclasses.replace(CFG, use_pallas=True, pallas_block_k=16)
-    safe = _vmap_safe(cfg_p)
-    assert safe.use_pallas is False and safe.pallas_block_elastic is False
-    assert _vmap_safe(CFG) is CFG  # already jnp: no rebuild
-
-    # auto: Pallas-enabled configs batch per pair (map); pure-jnp
-    # variational configs vmap; cond-heavy methods always map.
-    assert _resolve_impl(cfg_p, "auto") == "map"
     assert _resolve_impl(CFG, "auto") == "vmap"
     cfg_fl = dataclasses.replace(CFG, method=Method.FLUID, mu=0.25,
                                  lam=0.0, warp_halo=2)
     assert _resolve_impl(cfg_fl, "auto") == "map"
-    assert _resolve_impl(cfg_p, "vmap") == "vmap"  # explicit wins
+    assert _resolve_impl(cfg_fl, "vmap") == "vmap"  # explicit wins
 
     irefs, imovs = _batch_pairs(2)
-    res = register_batch(irefs, imovs, cfg_p, impl="vmap")
+    res = register_batch(irefs, imovs, CFG, impl="vmap")
     serial = register(irefs[0], imovs[0], CFG)
     np.testing.assert_allclose(
         np.asarray(res.motion[0]), np.asarray(serial.motion),
@@ -480,7 +469,7 @@ def test_register_sp_nrefine_matches_register(family, kw, serial_kw):
 
     cfg = RegConfig(niter=(6, 5), nscales=1, nrefine=2, warp_halo=4,
                     warp_halo_outer=4, warp_halo_auto=False,
-                    use_pallas=False, **serial_kw)
+                    **serial_kw)
     res = register(iref, imov, cfg)
     assert [int(x) for x in np.asarray(iters)] == [
         int(t.iterations) for t in res.traces
@@ -625,28 +614,3 @@ def test_register_sp_diffeo_deep_pyramid():
     np.testing.assert_allclose(
         np.asarray(u), np.asarray(res.motion), rtol=1e-4, atol=1e-5
     )
-
-
-def test_fluid_level_sharded_pallas_matches_unfused():
-    """Strip-local fused fluid iteration kernel (interpret mode) vs the
-    per-op strip body: same iteration counts, regrid events, and motion."""
-    from jax.experimental.pallas import tpu as pltpu
-    from opticalflow2d_tpu.parallel.spatial import make_fluid_level_sharded
-
-    mesh = make_mesh(data=1, x=8)
-    iref, imov = make_pair(64, 48, shift=(1.5, -0.8))
-    u0 = jnp.zeros((2, 64, 48))
-
-    base = make_fluid_level_sharded(mesh, 0.25, 0.0, 0.66, niter=15, halo=5)
-    want_u, want_it, want_rg = base(u0, jnp.asarray(iref), jnp.asarray(imov))
-
-    fused = make_fluid_level_sharded(mesh, 0.25, 0.0, 0.66, niter=15,
-                                     halo=5, use_pallas=True)
-    with pltpu.force_tpu_interpret_mode():
-        got_u, got_it, got_rg = fused(
-            u0, jnp.asarray(iref), jnp.asarray(imov))
-
-    assert int(got_it) == int(want_it)
-    assert int(got_rg) == int(want_rg)
-    np.testing.assert_allclose(np.asarray(got_u), np.asarray(want_u),
-                               rtol=1e-4, atol=1e-6)

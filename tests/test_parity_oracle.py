@@ -3,7 +3,7 @@ oracle, see oracle/). Covers the five BASELINE.json workloads.
 
 Bit-parity configs run with the compat flags on (maxabs bug, flat-wrap
 convolution) and — for elastic/fluid — the exact lexicographic wavefront SOR.
-The TPU-native red-black mode is validated separately at the
+The data-parallel red-black mode is validated separately at the
 converged-quality level (same fixed point, different iterate path)."""
 
 import numpy as np

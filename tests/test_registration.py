@@ -265,7 +265,7 @@ def test_demons_banner_params(capsys):
     assert "accumulation:    COMPOSITION" in out
 
 
-# --- Halo automation + fallback visibility (VERDICT r2 weak #5) -----------
+# --- Halo automation + fallback visibility ---------------------------------
 
 def test_demons_trace_counts_halo_fallbacks():
     """An undersized warp_halo must be visible in LevelTrace.fallbacks
@@ -355,8 +355,7 @@ def test_register_phased_auto_halo_and_warm_start():
 
 
 # --------------------------------------------------------------------------
-# Round 5: host-stepped level driver, static exp map, warm phased
-# continuation (VERDICT r4 tasks 3/4/5)
+# Host-stepped level driver, exp map, warm phased continuation
 # --------------------------------------------------------------------------
 
 
@@ -380,7 +379,7 @@ def test_stepped_level_matches_monolithic(method, kw):
     ua, ta = _solve_level(u0, iref, imov, cfg, 8, 0)
     ub, tb = _solve_level_stepped(u0, iref, imov, cfg, 8, 0)
     # rtol 2e-4: the stepped fluid/curvature iterations are split into
-    # multiple programs (HBM residency at 16384^2), and the program
+    # multiple programs (device memory at 16384^2), and the program
     # boundary changes FMA contraction vs the monolithic fusion — a few
     # elements drift at the 1e-5..1e-4 relative level (association only;
     # iteration counts and regrid events must still match exactly).
@@ -420,19 +419,11 @@ def test_stepped_fluid_regrid_events_match():
 
 
 def test_expmap_static_nsq():
-    """Static-count exp map (ops.warp.expmap(static_nsq=...)): the count
-    formula, the identity regime (bound <= 0.5, bit-identical to the
-    dynamic map), and bit-equality when the static and dynamic counts
-    coincide."""
-    from opticalflow2d_tpu.ops.warp import expmap, static_expmap_nsq
-
-    assert static_expmap_nsq(0.0) == 0
-    assert static_expmap_nsq(0.125) == 0
-    assert static_expmap_nsq(0.5) == 0
-    assert static_expmap_nsq(0.6) == 1
-    assert static_expmap_nsq(1.0) == 1
-    assert static_expmap_nsq(2.0) == 2
-    assert static_expmap_nsq(6.0) == 4
+    """The exp map's squaring count (ops.warp.expmap): a field whose max
+    magnitude is <= 0.5 takes no squaring and comes back bit-identical
+    (the reference's nsquares == 0 early return, Motion.cpp:257-260);
+    one in (0.5, 1] takes exactly one, i.e. equals compose(u/2, u/2)."""
+    from opticalflow2d_tpu.ops.warp import compose, expmap
 
     # maxabs is the max per-pixel MAGNITUDE (ops.reduce.motion_maxabs),
     # so the bounds below are magnitude bounds.
@@ -446,25 +437,19 @@ def test_expmap_static_nsq():
 
     small = bounded_field(0.0, 0.45)
     np.testing.assert_array_equal(
-        np.asarray(expmap(small, static_nsq=0)), np.asarray(small))
-    np.testing.assert_array_equal(
         np.asarray(expmap(small)), np.asarray(small))
 
     big = bounded_field(0.55, 0.95)
-    # dynamic maxabs in (0.5, 1] -> nsq 1; static bound 1.0 -> nsq 1. Same
-    # count and same math; only op-fusion differs (the dynamic path's
-    # fori_loop body is compiled, the static unroll here runs eagerly),
-    # so equality is to float-fusion tolerance rather than bitwise.
     assert 0.5 < float(jnp.max(jnp.sqrt(big[0] ** 2 + big[1] ** 2))) <= 1.0
+    half = big * 0.5
     np.testing.assert_allclose(
-        np.asarray(expmap(big)),
-        np.asarray(expmap(big, static_nsq=static_expmap_nsq(1.0))),
+        np.asarray(expmap(big)), np.asarray(compose(half, half)),
         rtol=1e-6, atol=1e-7)
 
 
 def test_register_phased_warm_coarse_matches_register():
     """register_phased(initial_coarse_motion=...) — the reference's
-    repeated-register continuation on the phased driver (VERDICT r4 #5,
+    repeated-register continuation on the phased driver (
     WrapperOpticalFlow2d.cpp:86-102) — must match the monolithic warm
     path and discriminate from a cold run."""
     from opticalflow2d_tpu.engine.registration import register_phased
@@ -494,10 +479,9 @@ def test_register_phased_warm_coarse_matches_register():
 
 
 def test_session_persistent_motion_huge_grid():
-    """ADVICE r4: a persistent_motion session on a >8192 grid must route
-    BOTH the cold and the warm register() through the phased driver (the
-    monolithic one cannot compile at 16384^2 on the real backend) and
-    reproduce the reference's warm-continuation semantics."""
+    """A persistent_motion session on a >8192 grid must route BOTH the
+    cold and the warm register() through the phased driver and reproduce
+    the reference's warm-continuation semantics."""
     nx, ny = 8256, 24  # extent > 8192 trips the phased dispatch; thin keeps CPU cost trivial
     iref, imov = make_pair(nx, ny, shift=(1.0, 0.5))
     sess = OpticalFlow2d(
@@ -523,8 +507,7 @@ def test_session_persistent_motion_huge_grid():
 
 def test_phased_huge_extent_stepped_families_cpu():
     """Thin >8192-extent grids drive the stepped-dispatch families
-    (curvature / fluid / diffeomorphic demons — VERDICT r4 tasks 2-4)
-    end-to-end on CPU, including the static exp map's huge-extent gate."""
+    (fluid / diffeomorphic demons) end-to-end on CPU."""
     from opticalflow2d_tpu.engine.registration import register_phased
 
     nx, ny = 8224, 16
@@ -545,22 +528,9 @@ def test_diffeo_identity_regime_equals_thirion_composition():
     """With |smoothed force| <= sigma_x/(2 sigma_i) <= 0.5 the exp map is
     the identity for every field (the reference's nsquares == 0 early
     return, Motion.cpp:257-260), so diffeomorphic demons IS Thirion with
-    COMPOSITION accumulation — the equivalence the one-pass routing of
-    solvers.demons.onepass_routed relies on. Pinned bitwise on the jnp
-    path."""
+    COMPOSITION accumulation. Pinned bitwise."""
     from opticalflow2d_tpu.config import MotionAccumulation
-    from opticalflow2d_tpu.solvers.demons import (
-        expmap_identity_regime,
-        make_demons_step,
-    )
-
-    assert expmap_identity_regime(1.0, 0.25)
-    assert expmap_identity_regime(1.0, 0.99)       # bound 0.495
-    # bound exactly 0.5 is excluded by the float-rounding guard margin
-    assert not expmap_identity_regime(1.0, 1.0)
-    assert not expmap_identity_regime(1.0, 1.2)    # bound 0.6 -> nsq 1
-    assert not expmap_identity_regime(1.0, 0.25, maxabs_bug=True)
-    assert not expmap_identity_regime(0.0, 0.25)
+    from opticalflow2d_tpu.solvers.demons import make_demons_step
 
     iref, imov = make_pair(48, 40, shift=(1.8, -1.1))
     iref = jnp.asarray(iref, jnp.float32)

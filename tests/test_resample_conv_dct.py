@@ -54,7 +54,7 @@ def test_upsample_odd_target(rng):
 @pytest.mark.parametrize("dims", [((10, 8), (20, 16)), ((10, 8), (21, 17)),
                                   ((13, 13), (26, 27)), ((32, 24), (32, 24))])
 def test_upsample_matmul_taps_bit_exact_vs_gather(rng, dims):
-    """The MXU selection-matmul tap path must be bit-identical to the
+    """The selection-matmul tap path must be bit-identical to the
     dynamic exact-gather path it replaced."""
     from opticalflow2d_tpu.ops.warp import _bilinear_from_taps, _gather_taps_exact
 
@@ -233,7 +233,7 @@ def test_curvature_split_impl_matches_matmul(rng):
 
 def test_dct_impl_auto_resolution():
     """Production ``dct_impl="auto"`` resolves to the split-radix 3-pass
-    transform (v5e-measured fastest at its error class); bug-compat
+    transform (within the session tolerance of the HIGHEST matmul); bug-compat
     configs stay on the bit-closest dense HIGHEST transform."""
     from opticalflow2d_tpu.config import RegConfig, CompatFlags, Method
 
